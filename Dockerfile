@@ -5,8 +5,9 @@
 # running the stdlib HTTP service.  Tests run during the build, like
 # the reference's multi-stage image.
 #
-# For TPU hosts, base this on a jax[tpu] image instead; the engine
-# falls back to CPU automatically when no accelerator is present.
+# The service serves from the host's NVIDIA GPU (docker run --gpus
+# all): JAX comes with its CUDA 12 plugin.  The test stage pins the
+# CPU (tests/conftest.py), so the image builds on a host without one.
 
 FROM python:3.12-slim AS base
 
@@ -19,7 +20,7 @@ COPY nxsearch_tpu/ nxsearch_tpu/
 COPY tests/ tests/
 COPY README.md .
 
-RUN pip install --no-cache-dir "jax[cpu]" numpy pytest \
+RUN pip install --no-cache-dir "jax[cuda12]" numpy pytest \
     && make -C native
 
 # lib/test target: run the suite during the build (reference

@@ -3,7 +3,7 @@
 //
 // The reference engine's ingest hot loop is native C (ICU word break +
 // filter pipeline per token, src/core/tokenizer.c:234-302); this is the
-// TPU rebuild's native equivalent for the host side.  It implements the
+// JAX rebuild's native equivalent for the host side.  It implements the
 // ASCII subset of the Python pipeline bit-for-bit (UAX#29 word rules
 // restricted to ASCII classes, ASCII lowercase, the Porter2 algorithm
 // of text/porter2.py); any text containing a non-ASCII byte is rejected

@@ -1,10 +1,11 @@
-"""nxsearch-tpu: a TPU-native full-text search engine.
+"""nxsearch-tpu: a GPU-resident full-text search engine in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 rmind/nxsearch (BM25/TF-IDF ranking, boolean query logic, stemming,
-fuzzy matching, filter plugins, REST service), built for TPU hardware:
-the inverted index is columnar CSR in HBM, scoring is gathered +
-segment-summed on device, and boolean algebra runs over packed bitmaps.
+fuzzy matching, filter plugins, REST service), built for one or more
+NVIDIA GPUs: the inverted index is columnar CSR in device memory,
+scoring is gathered + segment-summed on device, and boolean algebra
+runs over packed bitmaps.
 """
 
 from .errors import ErrorCode, NxsError

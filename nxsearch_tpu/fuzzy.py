@@ -11,11 +11,12 @@ src/algo/levdist.c operating on char.
 Two execution paths, identical results:
 
 - **Device** (vocabularies >= _DEVICE_THRESHOLD): bit-parallel Myers
-  edit distance over the whole vocabulary snapshot in one VPU sweep
-  (ops/levenshtein.py) -- the TPU-native replacement for BK-tree
-  pruning.  Terms longer than 32 bytes are excluded from the device
-  snapshot; they can only match queries >= 31 bytes, which are scanned
-  on the host.
+  edit distance over the vocabulary snapshot's length band in one
+  sweep (ops/levenshtein.py; on the GPU the fused Pallas kernel of
+  ops/pallas/fuzzy.py) -- the device replacement for BK-tree pruning.
+  Terms longer than 32 bytes are excluded from the device snapshot;
+  they can only match queries >= 31 bytes, which are scanned on the
+  host.
 - **Host** (small vocabularies or >32-byte query tokens): length-pruned
   banded Wagner-Fischer, mirroring levdist.c.
 
@@ -37,12 +38,29 @@ TOLERANCE = 2
 
 _DEVICE_THRESHOLD = 4096   # below this, host DP beats a device dispatch
 _MAX_DEVICE_BYTES = 32
-# Transposed-Myers batch kernel (ops/pallas/fuzzy.py
-# _myers_rev_kernel_batch): per-tile char table built once and shared
-# by all queries of a chunk.  Exact twin of the forward kernel
-# (property-tested); flag guards the hardware A/B.
-import os as _os
-_USE_REV_KERNEL = _os.environ.get("NXS_FUZZY_REV", "0") == "1"
+
+
+def _platform() -> str:
+    import jax
+    return jax.devices()[0].platform
+
+
+# Misses per kernel dispatch.  The kernel keeps Peq and the DP state
+# in registers and writes one (key, id) pair per block and query, so a
+# large batch costs no device memory.
+_KERNEL_BATCH = 64
+
+
+def _query_rows(n: int, kernel: bool) -> int:
+    """Padded query-row count of one device dispatch.  The kernel takes
+    a two-rung ladder (its query chunk, or the whole batch), so a
+    vocabulary band compiles at most two executables: a padding query
+    costs a few loop trips, a compile mid-serving costs the batch.  The
+    jnp sweep takes the rows as they are."""
+    if not kernel:
+        return n
+    from .ops.pallas.fuzzy import QUERY_CHUNK
+    return QUERY_CHUNK if n <= QUERY_CHUNK else _KERNEL_BATCH
 
 
 def levdist(a: bytes, b: bytes, cutoff: Optional[int] = None) -> int:
@@ -146,7 +164,9 @@ class FuzzyMatcher:
         new_terms = n > filled
         self._vb_filled = n
 
-        self._use_pallas = jax.devices()[0].platform != "cpu"
+        # The fused kernel is compiled for the GPU only; every other
+        # platform sweeps with the jnp path.
+        self._kernel = _platform() == "gpu"
         if new_terms or self._dev_bytes is None \
                 or getattr(self, "_t_pad", 0) != t_pad:
             # Sort key: byte length for device-eligible rows; >32-byte
@@ -165,9 +185,9 @@ class FuzzyMatcher:
                                 lens[order], 0)
             ids = np.full(t_pad, 0x7FFFFFFF, dtype=np.int32)
             ids[:n] = order.astype(np.int32)
-            # The Pallas kernels want the position-major layout (term
-            # per VPU lane); the jnp fallback the row-major one.
-            if self._use_pallas:
+            # The kernel reads the position-major layout (one coalesced
+            # row per byte position); the jnp sweep the row-major one.
+            if self._kernel:
                 self._dev_bytes = jax.device_put(
                     np.ascontiguousarray(vb_s.T))
             else:
@@ -191,18 +211,13 @@ class FuzzyMatcher:
         lo = int(self._len_off[max(q_len - tol, 1)])
         hi = int(self._len_off[min(q_len + tol, _MAX_DEVICE_BYTES) + 1])
         need = max(hi - lo, 1)
-        w = 1024                 # floor: Pallas tiles want >= 1k lanes
+        from .ops.pallas.fuzzy import BLOCK_TERMS
+        w = BLOCK_TERMS          # floor: one kernel block
         while w < need:
             w <<= 1
         w = min(w, self._t_pad)
         lo = max(min(lo, self._t_pad - w), 0)
         return lo, w
-
-    @property
-    def _mode(self) -> str:
-        if not self._use_pallas:
-            return "jnp"
-        return "rev" if _USE_REV_KERNEL else "fwd"
 
     # -- host path ---------------------------------------------------------
 
@@ -230,10 +245,10 @@ class FuzzyMatcher:
     def prefetch(self, values) -> None:
         """Resolve many tokens with one batched device dispatch.
 
-        Results land in a per-generation memo consulted by lookup();
-        on remote-TPU setups this turns per-token fuzzy round trips
-        into one per batch.  Tokens outside the device snapshot's
-        limits resolve through the host path as usual.
+        Results land in a per-generation memo consulted by lookup(),
+        so a batch pays one dispatch per length-band chunk instead of
+        one per token.  Tokens outside the device snapshot's limits
+        resolve through the host path as usual.
         """
         self._refresh()
         memo = self._memo()
@@ -256,12 +271,10 @@ class FuzzyMatcher:
         from .utils.trace import phase
         with phase("fuzzy.refresh_device"):
             self._refresh_device()
-        # Chunked.  The Pallas kernel keeps DP state in [BLK] lane
-        # vectors and re-reads nothing, so large chunks are free; the
-        # jnp fallback's vmapped Peq matrix is M x W x 32 u32 in HBM
-        # (1 GB at M=8 over a 1M-row region), capping its chunk at 8.
-        chunk = 64 if self._use_pallas else 8
-        mode = self._mode
+        # Chunked.  The jnp sweep's vmapped Peq matrix is M x W x 32
+        # u32 (1 GB at M=8 over a 1M-row region), capping its chunk at
+        # 8; the kernel takes whole batches (_KERNEL_BATCH).
+        chunk = _KERNEL_BATCH if self._kernel else 8
         # Group misses by their length band's sorted-row region: each
         # group sweeps only rows within tolerance of its query length.
         regions: dict[tuple[int, int], list] = {}
@@ -269,20 +282,15 @@ class FuzzyMatcher:
             regions.setdefault(self._region(len(q)), []).append(
                 (value, q))
         # Dispatch every chunk first (async), then fetch all results
-        # in one consolidated transfer: each fetch is a full round
-        # trip on remote-TPU setups (~27 ms), so a 512-miss batch paid
-        # 8 serial RTTs here before the single-fetch rework.
+        # in one consolidated transfer (one device->host copy per
+        # batch, not one per chunk).
         launched: list = []
         import time as _time
         _t0 = _time.perf_counter()
         for (lo, w), group in regions.items():
             for at in range(0, len(group), chunk):
                 part = group[at: at + chunk]
-                # Pad the row count to a pow2 bucket (>= 8): one
-                # compiled executable per bucket instead of one per
-                # miss count.
-                rows = max(8, 1 << (len(part) - 1).bit_length()) \
-                    if self._use_pallas else len(part)
+                rows = _query_rows(len(part), self._kernel)
                 qb = np.zeros((rows, _MAX_DEVICE_BYTES), dtype=np.uint8)
                 ql = np.zeros(rows, dtype=np.int32)
                 for i, (_, q) in enumerate(part):
@@ -291,8 +299,8 @@ class FuzzyMatcher:
                 idxs = fuzzy_best_region(
                     self._dev_bytes, self._dev_len, self._dev_total,
                     self._dev_ids, jnp.asarray(qb), jnp.asarray(ql),
-                    jnp.int32(lo), jnp.int32(self.tolerance),
-                    W=w, mode=mode)
+                    jnp.int32(lo), W=w, tolerance=self.tolerance,
+                    kernel=self._kernel)
                 launched.append((part, idxs))
         _t1 = _time.perf_counter()
         if len(launched) == 1:
@@ -345,7 +353,7 @@ class FuzzyMatcher:
             from .ops.levenshtein import fuzzy_best_region
             self._refresh_device()
             lo, w = self._region(len(q))
-            rows = 8 if self._use_pallas else 1
+            rows = _query_rows(1, self._kernel)
             qb = np.zeros((rows, _MAX_DEVICE_BYTES), dtype=np.uint8)
             ql = np.zeros(rows, dtype=np.int32)
             qb[0, : len(q)] = np.frombuffer(q, dtype=np.uint8)
@@ -353,7 +361,7 @@ class FuzzyMatcher:
             idxs = fuzzy_best_region(
                 self._dev_bytes, self._dev_len, self._dev_total,
                 self._dev_ids, jnp.asarray(qb), jnp.asarray(ql),
-                jnp.int32(lo), jnp.int32(tol), W=w, mode=self._mode)
+                jnp.int32(lo), W=w, tolerance=tol, kernel=self._kernel)
             best_idx = int(np.asarray(idxs)[0])
             best_id = best_idx + 1 if best_idx >= 0 else None
             best_total = int(self.host.term_total.view()[best_idx]) \

@@ -1,6 +1,6 @@
 """Host-authoritative index: terms journal + document-term journal.
 
-This is the TPU-native re-design of the reference's index engine
+This is the device-oriented re-design of the reference's index engine
 (src/index/terms.c, dtmap.c, idxterm.c, idxdoc.c).  Instead of
 pointer-chased in-memory objects over mmap'd blocks, the index is a set
 of *columnar arrays*:

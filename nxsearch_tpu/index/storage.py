@@ -33,6 +33,7 @@ from ..errors import ErrorCode, NxsError
 HEADER_FMT = "<IIQ16x"
 HEADER_SIZE = struct.calcsize(HEADER_FMT)
 ABI_VERSION = 1
+PREAD_MAX = 0x7FFFF000     # the most one pread(2) moves on Linux
 
 MAGIC_TERMS = 0x5454584E   # "NXTT"
 MAGIC_DTMAP = 0x4454584E   # "NXTD"
@@ -119,8 +120,24 @@ class LogFile:
         return data_len
 
     def read_payload(self, start: int, end: int) -> bytes:
-        """Read committed payload bytes [start, end)."""
-        return os.pread(self.fd, end - start, HEADER_SIZE + start)
+        """Read committed payload bytes [start, end).
+
+        Reads in pieces of at most ``PREAD_MAX`` bytes: one pread(2)
+        returns at most 0x7ffff000 bytes on Linux, and the dtmap tail
+        of a large index replayed from the start is several GB.
+        """
+        parts = []
+        at = start
+        while at < end:
+            part = os.pread(self.fd, min(end - at, PREAD_MAX),
+                            HEADER_SIZE + at)
+            if not part:
+                raise NxsError(ErrorCode.FATAL,
+                               f"{self.path}: truncated at payload "
+                               f"offset {at} of {end}")
+            parts.append(part)
+            at += len(part)
+        return parts[0] if len(parts) == 1 else b"".join(parts)
 
     def append(self, data: bytes, committed: int) -> int:
         """Append ``data`` at offset ``committed`` and publish.

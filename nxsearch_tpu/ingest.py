@@ -30,9 +30,11 @@ DocSource = Callable[[int, int], Iterable[Tuple[int, str]]]
 def _worker(basedir: str, index_name: str, source: DocSource,
             ranges: list, chunk: int, errq) -> None:
     try:
-        # Workers never need an accelerator; keep imports local so the
-        # child initializes fast and on CPU.
-        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        # Workers never need an accelerator, and a worker that opened
+        # the parent's GPU would reserve its memory: pin the CPU
+        # outright (the parent set JAX_PLATFORMS for the spawn too).
+        import jax
+        jax.config.update("jax_platforms", "cpu")
         from .nxs import Nxs
         from .utils.malloc import tune_host_allocator
         tune_host_allocator(prefault_mb=128)
@@ -106,8 +108,19 @@ def parallel_ingest(basedir: str, index_name: str, source: DocSource,
                          args=(basedir, index_name, source, ranges,
                                chunk, errq))
              for ranges in per if ranges]
-    for p in procs:
-        p.start()
+    # Spawned children copy this environment: JAX_PLATFORMS=cpu is in
+    # place before their first JAX import, so no worker opens the GPU
+    # that this process may hold (one JAX process per card).
+    saved = os.environ.get("JAX_PLATFORMS")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if saved is None:
+            del os.environ["JAX_PLATFORMS"]
+        else:
+            os.environ["JAX_PLATFORMS"] = saved
     for p in procs:
         p.join()
     failures = []

@@ -1,1 +1,1 @@
-"""Device (TPU) compute ops: scoring, boolean masks, fuzzy matching."""
+"""Device compute ops: scoring, boolean masks, fuzzy matching."""

@@ -2,8 +2,8 @@
 
 The reference evaluates the query AST recursively over roaring64
 bitmaps (src/query/search.c:118-174: AND/OR/ANDNOT in-place merges).
-On TPU the same algebra runs over *dense packed bitmaps*: one uint32
-word per 32 document slots, elementwise AND / OR / AND-NOT on the VPU.
+On the device the same algebra runs over *dense packed bitmaps*: one uint32
+word per 32 document slots, elementwise AND / OR / AND-NOT on the device.
 
 To avoid recompiling per query *shape*, the AST is lowered host-side to
 a fixed-width postfix program (``compile_program``) interpreted on

@@ -1,14 +1,14 @@
-"""Batched Levenshtein over the vocabulary: bit-parallel Myers on VPU.
+"""Batched Levenshtein over the vocabulary: bit-parallel Myers.
 
 The reference resolves fuzzy query tokens with a BK-tree pruned by the
 triangle inequality, computing Wagner-Fischer row DP per visited node
 (src/algo/bktree.c:219, src/algo/levdist.c:67).  Metric-tree pointer
-chasing is hostile to TPUs; the TPU-native replacement is brute force
-over *every* term, made cheap with Myers' bit-parallel algorithm
-(G. Myers, JACM 1999; Hyyrö 2001 formulation): for a query of at most
-32 bytes the whole DP column fits one uint32 lane, so each term costs
-L=32 fused elementwise u32 steps -- a [T]-wide VPU sweep with no
-data-dependent control flow.
+chasing does not map onto a wide vector machine; the device
+replacement is brute force over *every* term of the length band, made
+cheap with Myers' bit-parallel algorithm (G. Myers, JACM 1999; Hyyrö
+2001 formulation): for a query of at most 32 bytes the whole DP column
+fits one uint32, so each term costs L=32 fused elementwise u32 steps
+-- a [T]-wide sweep with no data-dependent control flow.
 
 Distances are over UTF-8 bytes, like levdist.c operating on char.
 Selection follows idxterm_fuzzysearch's intent: among terms within
@@ -93,33 +93,16 @@ def myers_distances(vocab_bytes: jax.Array,  # uint8[T, L] zero-padded
     return score
 
 
-def select_best(dist, vocab_len, term_total, tolerance):
-    """Pick the winning term from a distance vector.
+def select_best_ids(dist, vocab_len, term_total, term_ids, tolerance):
+    """Pick the winning term of a PERMUTED vocab region.
 
     Eligible: distance <= tolerance and live total > 0.  Highest total
-    wins; ties pick the lowest term index (oldest term).  Exact without
-    64-bit arithmetic (x64 is disabled by default in JAX): one max
-    reduction over totals, then a min reduction over indexes at that
-    total.  Returns (term_index or -1, distance at the winner).
-    """
-    n_terms = dist.shape[0]
-    idx = jnp.arange(n_terms, dtype=jnp.int32)
-    eligible = (vocab_len > 0) & (dist <= tolerance) & (term_total > 0)
-    best_total = jnp.max(jnp.where(eligible, term_total, jnp.uint32(0)))
-    at_best = eligible & (term_total == best_total)
-    best = jnp.min(jnp.where(at_best, idx, jnp.int32(n_terms)))
-    found = (best_total > 0) & (best < n_terms)
-    best = jnp.where(found, best, 0)
-    return (jnp.where(found, best, -1).astype(jnp.int32),
-            dist[best].astype(jnp.int32))
-
-
-def select_best_ids(dist, vocab_len, term_total, term_ids, tolerance):
-    """select_best over a PERMUTED vocab region: the length-sorted
-    snapshot (fuzzy.py) no longer encodes term age in row order, so
-    ties on the total pick the lowest ORIGINAL 0-based term index,
-    carried explicitly in ``term_ids`` (padding rows: INT32_MAX).
-    Returns the winning original index, or -1."""
+    wins; the length-sorted snapshot (fuzzy.py) no longer encodes term
+    age in row order, so ties pick the lowest ORIGINAL 0-based term
+    index, carried explicitly in ``term_ids`` (padding rows:
+    INT32_MAX).  Exact without 64-bit arithmetic: one max reduction
+    over totals, then a min over ids at that total.  Returns the
+    winning original index, or -1."""
     eligible = (vocab_len > 0) & (dist <= tolerance) & (term_total > 0)
     best_total = jnp.max(jnp.where(eligible, term_total, jnp.uint32(0)))
     at_best = eligible & (term_total == best_total)
@@ -129,144 +112,45 @@ def select_best_ids(dist, vocab_len, term_total, term_ids, tolerance):
     return jnp.where(found, best_id, -1).astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("W", "mode"))
-def fuzzy_best_region(vocab_t: jax.Array,    # [32, T_pad] or [T_pad, L]
+@functools.partial(jax.jit,
+                   static_argnames=("W", "tolerance", "kernel", "interpret"))
+def fuzzy_best_region(vocab: jax.Array,      # [32, T_pad] or [T_pad, L]
                       vocab_len: jax.Array,  # int32[T_pad]
                       term_total: jax.Array,  # uint32[T_pad]
                       term_ids: jax.Array,   # int32[T_pad] original ids
                       q_bytes: jax.Array,    # uint8[M, 32]
                       q_len: jax.Array,      # int32[M]
                       lo: jax.Array,         # int32: region start row
-                      tolerance: jax.Array,  # int32
-                      *, W: int, mode: str):
+                      *, W: int, tolerance: int, kernel: bool,
+                      interpret: bool = False):
     """Batched fuzzy match over a contiguous vocab region [lo, lo+W).
 
     The device snapshot is LENGTH-SORTED (fuzzy.py), so the rows whose
     byte length lies within the tolerance band of the query length
-    form one contiguous region -- the TPU-shaped equivalent of the
+    form one contiguous region -- the device equivalent of the
     BK-tree's triangle-inequality pruning at its cheapest
     (|len(q) - len(t)| <= tolerance, src/algo/bktree.c:219).  Sweeping
     a SUPERSET region is always correct: rows outside the band have
     distance > tolerance by construction and are discarded by the
     selection, so ``lo``/``W`` may be clamped or padded freely.
 
-    ``mode``: 'rev' / 'fwd' take the position-major [32, T_pad] Pallas
-    layout; 'jnp' takes the row-major [T_pad, L] matrix.  ``W`` is a
-    static pow2 bucket (Pallas tiles divide pow2 widths).
+    ``kernel`` selects the fused Pallas sweep (ops/pallas/fuzzy.py),
+    which takes the position-major [32, T_pad] layout; otherwise the
+    vmapped jnp sweep runs over the row-major [T_pad, L] matrix.
+    ``interpret`` runs the kernel in the Pallas interpreter (tests).
     """
-    if mode == "jnp":
-        vb = lax.dynamic_slice(
-            vocab_t, (lo, 0), (W, vocab_t.shape[1]))
-    else:
-        vb = lax.dynamic_slice(vocab_t, (0, lo), (32, W))
     vl = lax.dynamic_slice(vocab_len, (lo,), (W,))
     tt = lax.dynamic_slice(term_total, (lo,), (W,))
     ti = lax.dynamic_slice(term_ids, (lo,), (W,))
-    if mode == "rev":
-        from .pallas.fuzzy import myers_rev_distances_pallas_batch
-        dist = myers_rev_distances_pallas_batch(
-            vb, vl[None, :], q_bytes.astype(jnp.int32),
-            q_len[:, None].astype(jnp.int32))
-    elif mode == "fwd":
-        from .pallas.fuzzy import myers_distances_pallas_batch
-        dist = myers_distances_pallas_batch(
-            vb, vl[None, :], q_bytes.astype(jnp.int32),
-            q_len[:, None].astype(jnp.int32))
-    else:
-        dist = jax.vmap(
-            lambda qb, ql: myers_distances(vb, vl, qb, ql))(
-                q_bytes, q_len)
+    if kernel:
+        from .pallas.fuzzy import fuzzy_pick
+        vb = lax.dynamic_slice(vocab, (0, lo), (vocab.shape[0], W))
+        return fuzzy_pick(vb, vl, tt, ti, q_bytes, q_len,
+                          tolerance=tolerance, interpret=interpret)
+    vb = lax.dynamic_slice(vocab, (lo, 0), (W, vocab.shape[1]))
+    dist = jax.vmap(
+        lambda qb, ql: myers_distances(vb, vl, qb, ql))(q_bytes, q_len)
     return jax.vmap(select_best_ids,
                     in_axes=(0, None, None, None, None))(
         dist, vl, tt, ti, tolerance)
 
-
-@jax.jit
-def fuzzy_best(vocab_bytes: jax.Array,   # uint8[T, L]
-               vocab_len: jax.Array,     # int32[T] (0 = padding row)
-               term_total: jax.Array,    # uint32[T] (clipped live totals)
-               q_bytes: jax.Array,       # uint8[32]
-               q_len: jax.Array,         # int32
-               tolerance: jax.Array,     # int32
-               ) -> tuple[jax.Array, jax.Array]:
-    """Best fuzzy match via the jnp Myers sweep."""
-    dist = myers_distances(vocab_bytes, vocab_len, q_bytes, q_len)
-    return select_best(dist, vocab_len, term_total, tolerance)
-
-
-@jax.jit
-def fuzzy_best_batch(vocab_bytes: jax.Array,   # uint8[T, L]
-                     vocab_len: jax.Array,     # int32[T]
-                     term_total: jax.Array,    # uint32[T]
-                     q_bytes: jax.Array,       # uint8[M, 32]
-                     q_len: jax.Array,         # int32[M]
-                     tolerance: jax.Array,     # int32
-                     ) -> tuple[jax.Array, jax.Array]:
-    """Batched fuzzy match: one device dispatch resolves M query
-    tokens (vmap of the jnp Myers sweep + selection).  Essential on
-    remote-TPU setups where every dispatch costs a round trip."""
-    def one(qb, ql):
-        return fuzzy_best(vocab_bytes, vocab_len, term_total, qb, ql,
-                          tolerance)
-
-    return jax.vmap(one)(q_bytes, q_len)
-
-
-@jax.jit
-def fuzzy_best_pallas_batch(vocab_t: jax.Array,     # uint8[32, T_pad]
-                            vocab_len: jax.Array,   # int32[T_pad]
-                            term_total: jax.Array,  # uint32[T_pad]
-                            q_bytes: jax.Array,     # uint8[M, 32]
-                            q_len: jax.Array,       # int32[M]
-                            tolerance: jax.Array,   # int32
-                            ) -> tuple[jax.Array, jax.Array]:
-    """Batched fuzzy_best_pallas: M queries, one kernel dispatch.
-
-    The kernel holds each vocab tile in VMEM across all M queries
-    (HBM reads the vocabulary once per batch); the jnp fuzzy_best_batch
-    materializes an [M, T, 32] Peq in HBM, capping M at 8.
-    """
-    from .pallas.fuzzy import myers_distances_pallas_batch
-    dist = myers_distances_pallas_batch(
-        vocab_t, vocab_len[None, :],
-        q_bytes.astype(jnp.int32),
-        q_len[:, None].astype(jnp.int32))
-    return jax.vmap(select_best, in_axes=(0, None, None, None))(
-        dist, vocab_len, term_total, tolerance)
-
-
-@jax.jit
-def fuzzy_best_pallas_batch_rev(vocab_t: jax.Array,     # uint8[32, T_pad]
-                                vocab_len: jax.Array,   # int32[T_pad]
-                                term_total: jax.Array,  # uint32[T_pad]
-                                q_bytes: jax.Array,     # uint8[M, 32]
-                                q_len: jax.Array,       # int32[M]
-                                tolerance: jax.Array,   # int32
-                                ) -> tuple[jax.Array, jax.Array]:
-    """Batched fuzzy match via the transposed-Myers kernel: the
-    per-tile char table is built once and shared across the whole
-    query chunk (see ops/pallas/fuzzy._myers_rev_kernel_batch)."""
-    from .pallas.fuzzy import myers_rev_distances_pallas_batch
-    dist = myers_rev_distances_pallas_batch(
-        vocab_t, vocab_len[None, :],
-        q_bytes.astype(jnp.int32),
-        q_len[:, None].astype(jnp.int32))
-    return jax.vmap(select_best, in_axes=(0, None, None, None))(
-        dist, vocab_len, term_total, tolerance)
-
-
-@jax.jit
-def fuzzy_best_pallas(vocab_t: jax.Array,     # uint8[32, T_pad]
-                      vocab_len: jax.Array,   # int32[T_pad]
-                      term_total: jax.Array,  # uint32[T_pad]
-                      q_bytes: jax.Array,     # uint8[32]
-                      q_len: jax.Array,       # int32
-                      tolerance: jax.Array,   # int32
-                      ) -> tuple[jax.Array, jax.Array]:
-    """Best fuzzy match via the Pallas term-per-lane kernel (TPU)."""
-    from .pallas.fuzzy import myers_distances_pallas
-    dist = myers_distances_pallas(
-        vocab_t, vocab_len[None, :],
-        q_bytes.astype(jnp.int32)[None, :],
-        q_len.reshape(1, 1).astype(jnp.int32))[0]
-    return select_best(dist, vocab_len, term_total, tolerance)

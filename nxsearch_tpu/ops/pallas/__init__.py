@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for the hot ops (with interpret-mode fallback)."""
+"""Pallas kernels for the GPU (Triton route); tests run them in
+interpret mode."""

@@ -1,22 +1,25 @@
-"""Pallas kernel: bit-parallel Myers edit distance, term-per-lane.
+"""Pallas kernel (Triton route): fused Myers sweep + fuzzy pick.
 
-The jnp implementation (ops/levenshtein.py) materializes a [T, 32]
-Peq matrix in HBM and scans it; this kernel keeps everything on-chip:
-the vocabulary is laid out position-major ([32, T], one term per VPU
-lane), each grid step streams one [32, BLK] tile into VMEM, and the 32
-Myers steps run as fused u32 lane ops with the Peq row computed in
-registers -- zero extra HBM traffic beyond reading the vocabulary
-once.
+The plain path (ops/levenshtein.py, vmapped ``myers_distances``) builds
+an [M, W, 32] u32 Peq tensor in device memory -- 128 B per (query,
+term) -- and then writes [M, W] int32 distances for the selection.
+This kernel reads the vocabulary region once per query chunk and keeps
+the Peq row, the DP column and the running pick in registers:
 
-Layout notes:
-- vocab tile [32, BLK] uint8: position-major so step j reads one
-  contiguous [BLK] row; 32 sublanes exactly matches the int8 tile.
-- DP state (PV, MV, score) are [BLK] vectors carried through a
-  fori_loop -- one term's whole DP column lives in one lane's u32.
+- Grid (term block, query chunk).  Each program owns a position-major
+  [32, BLK] uint8 tile (row j holds byte j of BLK terms, so every row
+  load is one coalesced read) and loops over its chunk's queries.
+- Per query, the Myers steps run over term positions and stop at the
+  tile's longest term; step j builds its Peq row from the query bytes
+  (one compare per query byte), so nothing of size [W, 32] exists.
+- The selection of ``select_best_ids`` (distance <= tolerance, live
+  total > 0, highest total, lowest original id) is reduced inside the
+  program to one (key, id) pair per (block, query); XLA takes the
+  maximum over blocks.  Outputs are [blocks, M] instead of [M, W].
 
-The kernel is numerically identical to ops/levenshtein.myers_distances
-(property-tested); `distances()` picks the kernel on TPU and interpret
-mode elsewhere.
+All DP arithmetic is int32 (the bit patterns of the u32 reference, and
+its wrapping add); totals enter as an order-preserving int32 key
+(u32 ^ 0x80000000), so the pick equals the reference exactly.
 """
 
 from __future__ import annotations
@@ -27,346 +30,138 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-# Terms per vocabulary tile.  Bigger tiles amortize the per-grid-step
-# scalar prologue (hardware sweep, 1M vocab, M=64: blk 1024 93 ms,
-# 4096 76 ms, 8192 76 ms per chunk); clamped to the padded vocab size
-# for small dictionaries.
-BLOCK_TERMS = 8192
-QUERY_WIDTH = 32
+QUERY_WIDTH = 32        # query and term bytes per row (u32 DP column)
+BLOCK_TERMS = 512       # terms per program (power of two)
+QUERY_CHUNK = 8         # queries per program (power of two)
+NUM_WARPS = 2
+NUM_STAGES = 1
 
-
-def _myers_kernel(q_ref, qlen_ref, vocab_ref, vlen_ref, out_ref):
-    """One vocabulary tile: distances for BLK terms.
-
-    q_ref:    SMEM int32[1, 32]  query bytes (zero-padded)
-    qlen_ref: SMEM int32[1, 1]
-    vocab_ref: VMEM uint8[32, BLK]  position-major term bytes
-    vlen_ref: VMEM int32[1, BLK]
-    out_ref:  VMEM int32[1, BLK]
-    """
-    out_ref[0, :] = _myers_tile(q_ref, qlen_ref, 0, vocab_ref, vlen_ref)
+_NO_KEY = -(1 << 31)    # key of "no eligible term" (below every live key)
+_NO_ID = (1 << 31) - 1
 
 
-def _myers_kernel_batch(q_ref, qlen_ref, vocab_ref, vlen_ref, out_ref):
-    """Batched grid (tile, query): q_ref/qlen_ref hold ALL M queries
-    (SMEM int32[M, 32] / int32[M, 1], full-array blocks -- Mosaic's
-    block-divisibility rule forbids (1, 32) row blocks of an [M, 32]
-    array); the row is selected by the inner grid index.  out_ref is
-    the full [M, BLK] column block, revisited across the inner query
-    axis (its index map ignores the query index, so Mosaic keeps it
-    resident and flushes once per tile); each iteration stores its
-    own row -- a (1, BLK) output block would violate the 8-row
-    block-divisibility rule on the [M, T_pad] output."""
-    row = pl.program_id(1)
-    score = _myers_tile(q_ref, qlen_ref, row, vocab_ref, vlen_ref)
-    out_ref[pl.ds(row, 1), :] = score[None, :]
-
-
-def _myers_tile(q_ref, qlen_ref, row, vocab_ref, vlen_ref):
-    blk = vocab_ref.shape[1]
-    m = qlen_ref[row, 0]
-    mu = m.astype(jnp.uint32)
-    full = jnp.uint32(0xFFFFFFFF)
-    mask_m = jax.lax.select(
-        m >= 32, full,
-        (jnp.uint32(1) << jnp.minimum(mu, jnp.uint32(31))) - jnp.uint32(1))
-    high_bit = jnp.uint32(1) << jnp.minimum(mu - jnp.uint32(1),
-                                            jnp.uint32(31))
-
-    vlen = vlen_ref[0, :]
-    # Longest term in this tile: every loop below is bounded by the
-    # REAL lengths instead of the 32-byte layout width.  Typical
-    # vocabularies average 6-9 bytes, so length-bounding is worth
-    # ~4-5x on both phases (measured 13 -> ~X QPS on the 1M-vocab
-    # fuzzy tier; the old full-width kernel spent ~75 us per
-    # (tile, query) grid step almost entirely on padding work).
+def _kernel(q_ref, ql_ref, voc_ref, vlen_ref, key_ref, ids_ref,
+            okey_ref, oid_ref, *, tolerance: int):
+    """q_ref int32[QC, 32], ql_ref int32[QC], voc_ref uint8[32, BLK],
+    vlen_ref / key_ref / ids_ref int32[BLK]; writes okey_ref / oid_ref
+    int32[1, QC]: per query the best key and its lowest id."""
+    chunk = ql_ref.shape[0]
+    blk = vlen_ref.shape[0]
+    vlen = vlen_ref[...]
+    key = key_ref[...]
+    ids = ids_ref[...]
     vmax = jnp.max(vlen)
-    pv0 = jnp.full((blk,), mask_m, jnp.uint32)
-    mv0 = jnp.zeros((blk,), jnp.uint32)
-    score0 = jnp.full((blk,), m, jnp.int32)
+    slot = lax.broadcasted_iota(jnp.int32, (chunk,), 0)
+    zeros = jnp.zeros((blk,), jnp.int32)
+    one = jnp.int32(1)
 
-    # Peq: bit i of peq_all[j, t] is set where q[i] == term t's byte
-    # j.  The query loop is STATICALLY unrolled (a dynamic fori_loop
-    # here costs ~100 cycles of scalar loop overhead per iteration --
-    # it dominated the kernel at ~75 us per (tile, query) grid step)
-    # and branch-gated per 8-byte chunk on the query's real length
-    # (typical query tokens are 5-10 bytes; the tail 24 compares are
-    # dead work).  Exactness of both cuts: extra matches against
-    # zero-padded q bytes can only set peq bits i >= qlen, and bit
-    # i >= qlen of xh/ph never reaches the score (inc/dec read bit
-    # qlen-1; carries in the xh add propagate upward only) or the
-    # state (masked to mask_m) -- so bits >= qlen may be anything,
-    # including the zeros the skipped chunks leave.  Term rows build
-    # in 8-sublane groups, each group skipped outright when every
-    # term in the tile ends before it.
-    def _build_group(g0):
-        chars = vocab_ref[g0: g0 + 8, :].astype(jnp.int32)
-        zeros8 = jnp.zeros((8, blk), jnp.uint32)
+    def one_query(m, carry):
+        best_key, best_id = carry
+        qlen = ql_ref[m]
+        mask = jnp.where(qlen >= 32, jnp.int32(-1),
+                         (one << jnp.minimum(qlen, 31)) - one)
+        high = one << jnp.clip(qlen - 1, 0, 31)
 
-        def _byte_chunk(i0):
-            part = zeros8
-            for i in range(i0, i0 + 8):
-                hit = chars == q_ref[row, i]
-                part = part | (hit.astype(jnp.uint32) << jnp.uint32(i))
-            return part
+        def step(j, state):
+            pv, mv, score = state
+            row = voc_ref[j, :].astype(jnp.int32)
 
-        acc = _byte_chunk(0)  # qlen >= 1 always
-        for i0 in range(8, QUERY_WIDTH, 8):
-            acc = acc | lax.cond(i0 < m,
-                                 functools.partial(_byte_chunk, i0),
-                                 lambda: zeros8)
-        return acc
+            def match(i, acc):
+                return acc | jnp.where(row == q_ref[m, i], one << i, 0)
 
-    zeros_g = jnp.zeros((8, blk), jnp.uint32)
-    peq_all = jnp.concatenate(
-        [lax.cond(vmax > g * 8,
-                  functools.partial(_build_group, g * 8),
-                  lambda: zeros_g)
-         for g in range(QUERY_WIDTH // 8)], axis=0)
+            eq = lax.fori_loop(0, qlen, match, zeros)
+            xv = eq | mv
+            xh = (((eq & pv) + pv) ^ pv) | eq
+            ph = mv | ~(xh | pv)
+            mh = pv & xh
+            active = j < vlen
+            inc = ((ph & high) != 0).astype(jnp.int32)
+            dec = ((mh & high) != 0).astype(jnp.int32)
+            score = score + jnp.where(active, inc - dec, 0)
+            ph = (ph << 1) | one
+            mh = mh << 1
+            pv = jnp.where(active, (mh | ~(xv | ph)) & mask, pv)
+            mv = jnp.where(active, (ph & xv) & mask, mv)
+            return pv, mv, score
 
-    # The Myers steps unroll over term positions: row reads with
-    # *static* indexes keep Mosaic's sublane alignment checks happy
-    # (a fori_loop induction variable cannot be proven aligned).
-    # Steps past the tile's longest term are exact no-ops for every
-    # lane (active = j < vlen is false everywhere), so each step is
-    # branch-gated on the scalar bound.
-    def _step(state, *, j, peq):
-        pv, mv, score = state
-        xv = peq | mv
-        xh = (((peq & pv) + pv) ^ pv) | peq
-        ph = mv | ~(xh | pv)
-        mh = pv & xh
+        init = (jnp.full((blk,), mask, jnp.int32), zeros,
+                jnp.full((blk,), qlen, jnp.int32))
+        _, _, dist = lax.fori_loop(0, vmax, step, init)
+        ok = (vlen > 0) & (dist <= tolerance) & (key > _NO_KEY) & (qlen > 0)
+        bk = jnp.max(jnp.where(ok, key, _NO_KEY))
+        bi = jnp.min(jnp.where(ok & (key == bk), ids, _NO_ID))
+        return (jnp.where(slot == m, bk, best_key),
+                jnp.where(slot == m, bi, best_id))
 
-        inc = ((ph & high_bit) != 0).astype(jnp.int32)
-        dec = ((mh & high_bit) != 0).astype(jnp.int32)
-        active = j < vlen
-        score = score + jnp.where(active, inc - dec, 0)
-
-        ph = (ph << 1) | jnp.uint32(1)
-        mh = mh << 1
-        new_pv = (mh | ~(xv | ph)) & mask_m
-        new_mv = (ph & xv) & mask_m
-        return (jnp.where(active, new_pv, pv),
-                jnp.where(active, new_mv, mv), score)
-
-    state = (pv0, mv0, score0)
-    for j in range(QUERY_WIDTH):
-        state = lax.cond(j < vmax,
-                         functools.partial(_step, j=j, peq=peq_all[j, :]),
-                         lambda s: s, state)
-    return state[2]
+    best_key, best_id = lax.fori_loop(
+        0, chunk, one_query,
+        (jnp.full((chunk,), _NO_KEY, jnp.int32),
+         jnp.full((chunk,), _NO_ID, jnp.int32)))
+    okey_ref[0, :] = best_key
+    oid_ref[0, :] = best_id
 
 
-def _myers_rev_kernel_batch(q_ref, qlen_ref, vocab_ref, vlen_ref,
-                            out_ref, table_ref):
-    """Transposed Myers: pattern = TERM (per lane), text = QUERY.
-
-    Edit distance is symmetric, so swapping the roles is exact -- and
-    it moves the O(pattern x alphabet) Peq preprocessing from
-    per-(tile, query) to per-tile: ``table_ref`` (VMEM scratch
-    u32[256, BLK]) holds, for every byte value c, the bitmask over
-    term positions j where term[j] == c.  It is built ONCE per
-    vocabulary tile (inner grid axis = queries revisits the tile; the
-    scratch persists across grid steps) and each query's DP step i
-    just reads row q[i] -- the per-query work drops from the full
-    Peq build (~8 x 8 gated [8, BLK] compares) to qlen row reads plus
-    qlen Myers steps of [BLK] u32 lane ops.
-
-    Per-lane state: PV/MV masked to the term's own length n
-    (mask = (1 << n) - 1), score starts at n, and the score
-    increment reads the per-lane high bit 1 << (n - 1).  Steps run
-    over query positions i < qlen (scalar-gated static unroll).
-    Numerically identical to _myers_kernel_batch (property-tested).
-    """
-    row = pl.program_id(1)
-    blk = vocab_ref.shape[1]
-
-    @pl.when(row == 0)
-    def _build_table():
-        vmax = jnp.max(vlen_ref[0, :])
-        cvals = jax.lax.broadcasted_iota(jnp.int32, (256, 1), 0)
-        table = jnp.zeros((256, blk), jnp.uint32)
-        # Unrolled over term positions, branch-gated per 8-byte chunk
-        # on the tile's longest term (typical vocab terms are 6-9
-        # bytes, so 3 of 4 chunks are dead work).
-        def _chunk(tbl, *, g0):
-            chars = vocab_ref[g0: g0 + 8, :].astype(jnp.int32)
-            for j in range(8):
-                hit = cvals == chars[j][None, :]        # [256, blk]
-                tbl = tbl | (hit.astype(jnp.uint32)
-                             << jnp.uint32(g0 + j))
-            return tbl
-
-        table = _chunk(table, g0=0)   # vmax >= 1 always (live tiles)
-        for g0 in range(8, QUERY_WIDTH, 8):
-            table = lax.cond(g0 < vmax,
-                             functools.partial(_chunk, g0=g0),
-                             lambda t: t, table)
-        table_ref[:, :] = table
-
-    vlen = vlen_ref[0, :]
-    n_u = vlen.astype(jnp.uint32)
-    full = jnp.uint32(0xFFFFFFFF)
-    mask_n = jnp.where(
-        vlen >= 32, full,
-        (jnp.uint32(1) << jnp.minimum(n_u, jnp.uint32(31)))
-        - jnp.uint32(1))
-    high_bit = jnp.uint32(1) << jnp.minimum(
-        n_u - jnp.uint32(1), jnp.uint32(31))
-
-    m = qlen_ref[row, 0]
-    pv0 = mask_n
-    mv0 = jnp.zeros((blk,), jnp.uint32)
-    score0 = vlen
-
-    def _step(state, *, i):
-        pv, mv, score = state
-        # Dynamic single-row read of the char table by the query byte.
-        eq = table_ref[pl.ds(q_ref[row, i], 1), :][0]
-        xv = eq | mv
-        xh = (((eq & pv) + pv) ^ pv) | eq
-        ph = mv | ~(xh | pv)
-        mh = pv & xh
-        inc = ((ph & high_bit) != 0).astype(jnp.int32)
-        dec = ((mh & high_bit) != 0).astype(jnp.int32)
-        score = score + inc - dec
-        ph = (ph << 1) | jnp.uint32(1)
-        mh = mh << 1
-        pv = (mh | ~(xv | ph)) & mask_n
-        mv = (ph & xv) & mask_n
-        return (pv, mv, score)
-
-    state = (pv0, mv0, score0)
-    for i in range(QUERY_WIDTH):
-        state = lax.cond(i < m,
-                         functools.partial(_step, i=i),
-                         lambda s: s, state)
-    out_ref[pl.ds(row, 1), :] = state[2][None, :]
+def _pad_to(x, n: int, axis: int, value=0):
+    extra = n - x.shape[axis]
+    if extra == 0:
+        return x
+    pads = [(0, 0)] * x.ndim
+    pads[axis] = (0, extra)
+    return jnp.pad(x, pads, constant_values=value)
 
 
-# Terms per tile for the transposed kernel: the 256-row char table is
-# the VMEM budget driver (256 x BLK x 4 B = 4 MB at 4096).
-BLOCK_TERMS_REV = 4096
+@functools.partial(
+    jax.jit, static_argnames=("tolerance", "block", "chunk", "num_warps",
+                              "num_stages", "interpret"))
+def fuzzy_pick(vocab_t: jax.Array,     # uint8[32, W] position-major
+               vocab_len: jax.Array,   # int32[W] (0 = padding row)
+               term_total: jax.Array,  # uint32[W] clipped live totals
+               term_ids: jax.Array,    # int32[W] original 0-based ids
+               q_bytes: jax.Array,     # int32[M, 32] zero-padded
+               q_len: jax.Array,       # int32[M] (0 = padding query)
+               *, tolerance: int, block: int = BLOCK_TERMS,
+               chunk: int = QUERY_CHUNK, num_warps: int = NUM_WARPS,
+               num_stages: int = NUM_STAGES, interpret: bool = False):
+    """int32[M]: per query the winning original term index, or -1.
 
-
-@functools.partial(jax.jit, static_argnames=("interpret", "block"))
-def myers_rev_distances_pallas_batch(
-    vocab_t: jax.Array,    # uint8[32, T_pad] position-major
-    vocab_len: jax.Array,  # int32[1, T_pad]
-    q_bytes: jax.Array,    # int32[M, 32]
-    q_len: jax.Array,      # int32[M, 1]
-    *,
-    interpret: bool = False,
-    block: int | None = None,
-):
-    """int32[M, T_pad]: transposed-Myers batch distances (exact twin
-    of myers_distances_pallas_batch; see _myers_rev_kernel_batch)."""
-    m_q = q_bytes.shape[0]
-    t_pad = vocab_t.shape[1]
-    blk = min(block or BLOCK_TERMS_REV, t_pad)
-    assert t_pad % blk == 0, \
-        f"vocab pad {t_pad} not divisible by block {blk}"
-    grid = (t_pad // blk, m_q)
-    return pl.pallas_call(
-        _myers_rev_kernel_batch,
-        grid=grid,
+    Same result as ``select_best_ids`` over ``myers_distances`` for
+    every query (ops/levenshtein.py).  W and M need not be multiples of
+    ``block`` / ``chunk``: both pad here (padding terms have length 0,
+    padding queries length 0, and neither can be picked)."""
+    w, m = vocab_t.shape[1], q_bytes.shape[0]
+    w_pad = -(-w // block) * block
+    m_pad = -(-m // chunk) * chunk
+    voc = _pad_to(vocab_t, w_pad, 1)
+    vlen = _pad_to(vocab_len.astype(jnp.int32), w_pad, 0)
+    key = lax.bitcast_convert_type(
+        term_total.astype(jnp.uint32) ^ jnp.uint32(0x80000000), jnp.int32)
+    key = _pad_to(key, w_pad, 0, _NO_KEY)
+    ids = _pad_to(term_ids.astype(jnp.int32), w_pad, 0, _NO_ID)
+    qb = _pad_to(q_bytes.astype(jnp.int32), m_pad, 0)
+    ql = _pad_to(q_len.astype(jnp.int32), m_pad, 0)
+    n_blocks = w_pad // block
+    out_shape = jax.ShapeDtypeStruct((n_blocks, m_pad), jnp.int32)
+    okey, oid = pl.pallas_call(
+        functools.partial(_kernel, tolerance=tolerance),
+        grid=(n_blocks, m_pad // chunk),
         in_specs=[
-            pl.BlockSpec((m_q, QUERY_WIDTH), lambda i, m: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((m_q, 1), lambda i, m: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((QUERY_WIDTH, blk), lambda i, m: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, blk), lambda i, m: (0, i),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((chunk, QUERY_WIDTH), lambda t, c: (c, 0)),
+            pl.BlockSpec((chunk,), lambda t, c: (c,)),
+            pl.BlockSpec((QUERY_WIDTH, block), lambda t, c: (0, t)),
+            pl.BlockSpec((block,), lambda t, c: (t,)),
+            pl.BlockSpec((block,), lambda t, c: (t,)),
+            pl.BlockSpec((block,), lambda t, c: (t,)),
         ],
-        out_specs=pl.BlockSpec((m_q, blk), lambda i, m: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m_q, t_pad), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((256, blk), jnp.uint32)],
+        out_specs=[pl.BlockSpec((1, chunk), lambda t, c: (t, c))] * 2,
+        out_shape=[out_shape, out_shape],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages),
         interpret=interpret,
-    )(q_bytes, q_len, vocab_t, vocab_len)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def myers_distances_pallas(
-    vocab_t: jax.Array,    # uint8[32, T_pad] position-major, T_pad % BLK == 0
-    vocab_len: jax.Array,  # int32[1, T_pad]
-    q_bytes: jax.Array,    # int32[1, 32]
-    q_len: jax.Array,      # int32[1, 1]
-    *,
-    interpret: bool = False,
-):
-    """int32[1, T_pad] exact Levenshtein distances."""
-    t_pad = vocab_t.shape[1]
-    blk = min(BLOCK_TERMS, t_pad)
-    assert t_pad % blk == 0, \
-        f"vocab pad {t_pad} not divisible by block {blk}"
-    grid = (t_pad // blk,)
-    return pl.pallas_call(
-        _myers_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, QUERY_WIDTH), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((QUERY_WIDTH, blk), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, blk), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, blk), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, t_pad), jnp.int32),
-        interpret=interpret,
-    )(q_bytes, q_len, vocab_t, vocab_len)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "block"))
-def myers_distances_pallas_batch(
-    vocab_t: jax.Array,    # uint8[32, T_pad] position-major
-    vocab_len: jax.Array,  # int32[1, T_pad]
-    q_bytes: jax.Array,    # int32[M, 32]
-    q_len: jax.Array,      # int32[M, 1]
-    *,
-    interpret: bool = False,
-    block: int | None = None,
-):
-    """int32[M, T_pad]: distances of M queries to every vocab term.
-
-    Same kernel body as the single-query call; the grid's inner axis
-    iterates queries with the vocab tile's index map held constant, so
-    Pallas keeps the [32, BLK] tile resident in VMEM across all M
-    queries -- the vocabulary is read from HBM once per *batch*, not
-    once per query.  The jnp batch path (ops/levenshtein.
-    fuzzy_best_batch) materializes a [M, T, 32] u32 Peq matrix in HBM
-    (1 GB at M=8, T=1M), capping its chunk size at 8; this kernel's
-    state is [BLK] vectors, so M=64 chunks are free.
-    """
-    m_q = q_bytes.shape[0]
-    t_pad = vocab_t.shape[1]
-    blk = min(block or BLOCK_TERMS, t_pad)
-    assert t_pad % blk == 0, \
-        f"vocab pad {t_pad} not divisible by block {blk}"
-    grid = (t_pad // blk, m_q)
-    return pl.pallas_call(
-        _myers_kernel_batch,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((m_q, QUERY_WIDTH), lambda i, m: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((m_q, 1), lambda i, m: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((QUERY_WIDTH, blk), lambda i, m: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, blk), lambda i, m: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((m_q, blk), lambda i, m: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m_q, t_pad), jnp.int32),
-        interpret=interpret,
-    )(q_bytes, q_len, vocab_t, vocab_len)
+        name="myers_fuzzy_pick",
+    )(qb, ql, voc, vlen, key, ids)
+    best = jnp.max(okey, axis=0)
+    best_id = jnp.min(jnp.where(okey == best[None, :], oid, _NO_ID), axis=0)
+    return jnp.where(best > _NO_KEY, best_id, -1)[:m]

@@ -1,16 +1,16 @@
 """Device search execution: postings gather + ranking + top-k.
 
-This is the TPU-native re-design of the reference's doc×term scoring
+This is the device re-design of the reference's doc×term scoring
 loop (src/query/search.c:210-271 iterates the result bitmap and, per
-document, every query term's bitmap and per-document counts).  On TPU
-the same computation is expressed data-parallel over *postings*:
+document, every query term's bitmap and per-document counts).  On the
+device the same computation is expressed data-parallel over *postings*:
 
     1. The query's terms select CSR ranges of the postings arrays.
        All ranges are flattened into one fixed-budget gather plan
        (``flatten_ranges``) -- posting b maps to (query term q, source
        index src) by rank arithmetic, no data-dependent shapes.
     2. Every gathered posting (slot, tf) is scored elementwise with
-       BM25 or TF-IDF (src/algo/ranking.c:41,99) -- pure VPU math.
+       BM25 or TF-IDF (src/algo/ranking.c:41,99) -- pure elementwise math.
     3. Postings not surviving the boolean mask (AND/OR/AND-NOT, see
        ops/boolean.py) are zeroed.
     4. Scores are scatter-added into a dense per-document-slot score

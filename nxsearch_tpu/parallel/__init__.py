@@ -1,4 +1,4 @@
-"""Multi-chip parallelism: doc-sharded index + mesh search execution."""
+"""Multi-device parallelism: doc-sharded index + mesh search execution."""
 
 from .sharded import ShardedDeviceIndex, make_mesh
 

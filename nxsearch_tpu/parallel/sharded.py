@@ -1,33 +1,34 @@
 """Doc-sharded search over a JAX device mesh.
 
 The reference's only parallelism is multi-process index sharing on one
-node via mmap + flock (SURVEY §2.8).  The TPU-native scale-out story is
+node via mmap + flock (SURVEY §2.8).  The device scale-out story is
 *document sharding*: the doc-slot space is partitioned contiguously
-across the mesh's ``docs`` axis, each chip holds its shard of the
+across the mesh's ``docs`` axis, each GPU holds its shard of the
 postings (its rows of every term's posting list) and its shard of the
 document table, and a query executes as:
 
     shard-local score -> boolean mask -> shard-local top-k
                                               (pure local compute)
-    -> all_gather of the per-shard top-k      (one small ICI collective)
+    -> all_gather of the per-shard top-k      (one small collective)
     -> global top-k merge                     (replicated)
 
-The only cross-chip traffic is ``n_dev * k`` candidate (score, slot)
-pairs -- the collective rides ICI, never the postings.  This mirrors
-the classic distributed-search scatter/gather but expressed as a
-single SPMD program under ``shard_map``.
+The only cross-device traffic is ``n_dev * k`` candidate (score, slot)
+pairs -- the collective (NCCL over NVLink on a multi-GPU host) never
+moves the postings.  The cards of one host reach each other all to
+all at one rate, so the mesh is 1-D.  This mirrors the classic
+distributed-search scatter/gather but expressed as a single SPMD
+program under ``shard_map``.
 
-The shard-local body picks the same executors as a single chip
+The shard-local body picks the same executors as a single device
 (ops/executor.py), INCLUDING the flagship serving plan: pure-OR BM25
 queries run the impact-prefix executor per shard
 (``sharded_search_prefix_batch`` -> prefix_topk, R = 0 complete
 planes -- doc sharding windows each shard's rows of every term in
 full, so exactness holds by construction with no impact regions or
 certification); windowed/masked sliced plans run ``sliced_topk``; the
-Pallas block-accumulation kernel covers accelerator fallbacks
-(``use_kernel``), the dense packed-bitmap path >32-term boolean
-queries (``use_dense``), and the candidate gather/sort core the rest
--- so multi-chip scales the fast path, not a fallback.  Correctness
+dense packed-bitmap path >32-term boolean queries (``use_dense``), and
+the candidate gather/sort core the rest -- so several devices scale
+the fast path, not a fallback.  Correctness
 of the merge follows from every global top-k document being in its
 own shard's local top-k.
 
@@ -49,8 +50,7 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..index.hostindex import HostIndex
-from ..ops.executor import (blockdense_topk, candidate_topk, dense_topk,
-                            sliced_topk)
+from ..ops.executor import candidate_topk, dense_topk, sliced_topk
 
 
 def make_mesh(devices: Optional[Sequence[jax.Device]] = None,
@@ -101,11 +101,11 @@ def sharded_search_sliced_batch(
 ):
     """Batched doc-sharded search through the sliced executor: the
     shard-local body is ops/executor.sliced_topk (contiguous per-term
-    windows, variadic sort, shifted-pass aggregation), the cross-chip
-    traffic is one all_gather of n_dev * k candidates over ICI.
+    windows, variadic sort, shifted-pass aggregation), the cross-device
+    traffic is one all_gather of n_dev * k candidates.
     Windowed plans (``n_run`` > 0) and head-term merges (``T_head`` >
     0, per-shard head ranges) run per shard exactly like a single
-    chip: the column -> token-row map and logical term count are
+    device: the column -> token-row map and logical term count are
     shard-invariant by construction (search.py builds windows on the
     max per-shard length).  Returns replicated (scores f32[N, k'],
     global slots i32[N, k'])."""
@@ -197,19 +197,19 @@ def sharded_search_prefix_batch(
     n_run: int,
     k_ret: int = 0,
 ):
-    """Doc-sharded impact-prefix executor: the flagship single-chip
+    """Doc-sharded impact-prefix executor: the flagship single-device
     serving plan (ops/executor.prefix_topk, R = 0 complete planes) run
-    per shard under ``shard_map`` -- so a pod serves the same fast
-    path as one chip (reference analogue: every mmap reader runs the
+    per shard under ``shard_map`` -- so a mesh serves the same fast
+    path as one device (reference analogue: every mmap reader runs the
     same hot loop, src/query/search.c:285).
 
-    Doc sharding makes R = 0 the natural multi-chip shape: each
+    Doc sharding makes R = 0 the natural multi-device shape: each
     shard's windows cover its own rows of every query term's postings
     IN FULL (the per-shard df is a fraction of the global df), so the
     per-shard plane is complete and the result exact by construction
     -- no impact-prefix regions, tail bounds, or certification are
-    needed on the mesh.  Cross-chip traffic is one all_gather of
-    n_dev * k candidates over ICI, merged replicated.
+    needed on the mesh.  Cross-device traffic is one all_gather of
+    n_dev * k candidates, merged replicated.
 
     Returns replicated (scores f32[N, k'], global slots i32[N, k'])."""
     from ..ops.executor import prefix_topk
@@ -263,7 +263,7 @@ def _bucket(n: int, minimum: int) -> int:
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "budget", "k", "algo", "use_mask", "depth",
-                     "use_kernel", "use_dense", "interpret"),
+                     "use_dense"),
 )
 def sharded_search(
     postings_slot: jax.Array,   # int32[n_dev, Ps_pad] shard-local slots
@@ -283,9 +283,7 @@ def sharded_search(
     algo: int,
     use_mask: bool,
     depth: int = 8,
-    use_kernel: bool = False,
     use_dense: bool = False,
-    interpret: bool = False,
 ):
     """Returns replicated (scores f32[k'], global slots i32[k'])."""
     packed = sharded_search_batch(
@@ -293,8 +291,7 @@ def sharded_search(
         q_start[:, None, :], q_len[:, None, :], q_idf[None],
         adl, prog_ops[None], prog_args[None],
         mesh=mesh, budget=budget, k=k, algo=algo, use_mask=use_mask,
-        depth=depth, use_kernel=use_kernel, use_dense=use_dense,
-        interpret=interpret)
+        depth=depth, use_dense=use_dense)
     scores, slots = packed
     return scores[0], slots[0]
 
@@ -302,7 +299,7 @@ def sharded_search(
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "budget", "k", "algo", "use_mask", "depth",
-                     "use_kernel", "use_dense", "interpret"),
+                     "use_dense"),
 )
 def sharded_search_batch(
     postings_slot: jax.Array,   # int32[n_dev, Ps_pad]
@@ -322,45 +319,33 @@ def sharded_search_batch(
     algo: int,
     use_mask: bool,
     depth: int = 8,
-    use_kernel: bool = False,
     use_dense: bool = False,
-    interpret: bool = False,
 ):
     """Batched doc-sharded search: the shard-local executor inside the
-    shard_map body, one ICI all_gather for the whole batch.
+    shard_map body, one all_gather for the whole batch.
     Returns replicated (scores f32[N, k'], global slots i32[N, k'])."""
     axis = mesh.axis_names[0]
     n_dev = mesh.shape[axis]
     slots_per_shard = doc_len.shape[1]
-    k_local = min(k, slots_per_shard if (use_kernel or use_dense)
-                  else budget)
+    k_local = min(k, slots_per_shard if use_dense else budget)
     k_final = min(k, n_dev * k_local)
 
     def shard_body(pslot, pltf, dlen, am, qs, qlen, qidf, adl_s,
                    pops, pargs):
-        if use_kernel:
-            local_scores, local_slots = blockdense_topk(
-                pslot[0], pltf[0], dlen[0], am[0], qs[0], qlen[0],
-                qidf, adl_s, pops, pargs,
-                k=k_local, algo=algo, n_slots=slots_per_shard,
-                use_mask=use_mask, depth=depth, interpret=interpret)
-        else:
-            core = dense_topk if use_dense else candidate_topk
+        def one(q_s, q_l, q_i, p_o, p_a):
+            if use_dense:
+                return dense_topk(
+                    pslot[0], pltf[0], dlen[0], am[0], q_s, q_l,
+                    q_i, adl_s, p_o, p_a, budget=budget, k=k_local,
+                    algo=algo, n_slots=slots_per_shard,
+                    use_mask=use_mask, depth=depth)
+            return candidate_topk(
+                pslot[0], pltf[0], dlen[0], am[0], q_s, q_l, q_i,
+                adl_s, p_o, p_a, budget=budget, k=k_local,
+                algo=algo, use_mask=use_mask, depth=depth)
 
-            def one(q_s, q_l, q_i, p_o, p_a):
-                if use_dense:
-                    return dense_topk(
-                        pslot[0], pltf[0], dlen[0], am[0], q_s, q_l,
-                        q_i, adl_s, p_o, p_a, budget=budget, k=k_local,
-                        algo=algo, n_slots=slots_per_shard,
-                        use_mask=use_mask, depth=depth)
-                return candidate_topk(
-                    pslot[0], pltf[0], dlen[0], am[0], q_s, q_l, q_i,
-                    adl_s, p_o, p_a, budget=budget, k=k_local,
-                    algo=algo, use_mask=use_mask, depth=depth)
-
-            local_scores, local_slots = jax.vmap(one)(
-                qs[0], qlen[0], qidf, pops, pargs)     # [N, k_local]
+        local_scores, local_slots = jax.vmap(one)(
+            qs[0], qlen[0], qidf, pops, pargs)     # [N, k_local]
         global_slots = (local_slots
                         + lax.axis_index(axis) * slots_per_shard)
         all_scores = lax.all_gather(local_scores, axis, axis=1)
@@ -398,7 +383,7 @@ class ShardedDeviceIndex:
     slots [d*Ss, (d+1)*Ss).
     """
 
-    _MIN_SLOTS = 1024       # per shard; keeps mask words VPU-aligned
+    _MIN_SLOTS = 1024       # per shard; keeps mask words warp-aligned
     _MIN_POSTINGS = 4096    # per shard
 
     DELTA_MAX_POSTINGS = 65536

@@ -384,10 +384,10 @@ def main(argv=None) -> None:
                          "(repeatable); with the persistent compile "
                          "cache, restarts reload executables instead "
                          "of recompiling")
-    ap.add_argument("--jax-cache", default=None, metavar="DIR",
-                    help="persistent XLA compilation cache directory "
-                         "(default: <basedir>/.jax_cache; 'off' "
-                         "disables)")
+    ap.add_argument("--no-jax-cache", action="store_true",
+                    help="disable the persistent XLA compilation cache "
+                         "(default: $JAX_COMPILATION_CACHE_DIR, else "
+                         "<checkout>/.jax_cache)")
     args = ap.parse_args(argv)
     if not args.basedir:
         raise SystemExit("--basedir or NXS_BASEDIR required")
@@ -395,18 +395,13 @@ def main(argv=None) -> None:
     from ..utils.malloc import tune_host_allocator
     tune_host_allocator()
 
-    if args.jax_cache != "off":
+    if not args.no_jax_cache:
         # Persistent compile cache: a first-of-its-shape query pays a
         # multi-second XLA compile exactly once per deployment, not
-        # once per process (the TPU-native analogue of the
-        # reference's mmap page-cache persistence).
-        import jax
-        cache_dir = args.jax_cache or os.path.join(args.basedir,
-                                                   ".jax_cache")
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          0.5)
+        # once per process (the device analogue of the reference's
+        # mmap page-cache persistence).
+        from ..utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
 
     svc = SearchService(args.basedir)
     for name in args.prewarm:

@@ -60,7 +60,7 @@ OPENAPI = {
     "openapi": "3.0.3",
     "info": {
         "title": "nxsearch-tpu",
-        "description": "TPU-native full-text search engine REST API",
+        "description": "GPU-resident full-text search engine REST API",
         "version": "0.1.0",
     },
     "paths": {

@@ -3,8 +3,8 @@
 The same NOP-padded postfix program is interpreted by three backends:
 the packed-bitmap device evaluator (``eval_program``), the per-candidate
 presence-bits device evaluator (``eval_program_bits``), and the host
-numpy twin used for delta docs (``search._eval_program_np``).  VERDICT
-r1 flagged the numpy twin as an unpinned parity risk; this pins all
+numpy twin used for delta docs (``search._eval_program_np``).  An
+unpinned numpy twin is a parity risk; this pins all
 three to each other over randomly generated valid programs.
 """
 

@@ -6,6 +6,7 @@ levdist.c semantics) and the lookup must select the most-popular term
 within tolerance 2, host and device paths agreeing.
 """
 
+import functools
 import random
 import string
 
@@ -16,16 +17,8 @@ import pytest
 import nxsearch_tpu.fuzzy as fuzzy_mod
 from nxsearch_tpu import Nxs
 from nxsearch_tpu.fuzzy import FuzzyMatcher, levdist
-from nxsearch_tpu.ops.levenshtein import (MAX_TERM_BYTES, fuzzy_best,
-                                          myers_distances)
-
-
-# Real kernels on accelerators, interpret mode on CPU: the on-TPU test
-# lane (tools/tpu_tests.sh) re-runs these against actual Mosaic
-# lowering and hardware numerics (denormal flushes etc.).
-import jax as _jax
-
-INTERPRET = _jax.devices()[0].platform == "cpu"
+from nxsearch_tpu.ops.levenshtein import (MAX_TERM_BYTES,
+                                          fuzzy_best_region, myers_distances)
 
 
 def pack_vocab(words):
@@ -77,20 +70,24 @@ def test_myers_property_fuzz():
 def test_fuzzy_best_selection():
     vocab = ["dog", "dig", "dug", "cat"]
     vb, vl = pack_vocab(vocab)
-    totals = jnp.asarray(np.array([5, 50, 5, 100], dtype=np.uint32))
-    qb, ql = pack_query("dag")
-    idx, dist = fuzzy_best(vb, vl, totals, qb, ql, jnp.int32(2))
+    ids = jnp.arange(len(vocab), dtype=jnp.int32)
+
+    def pick(query, totals):
+        qb, ql = pack_query(query)
+        return int(fuzzy_best_region(
+            vb, vl, jnp.asarray(np.array(totals, dtype=np.uint32)), ids,
+            qb[None], ql[None], jnp.int32(0), W=len(vocab), tolerance=2,
+            kernel=False)[0])
+
     # dig (50) beats dog/dug (5); cat is within distance 2? c-a-t vs
     # d-a-g = 2 substitutions => eligible with total 100 -> wins.
-    assert int(idx) == 3
+    assert pick("dag", [5, 50, 5, 100]) == 3
     # Zero-total terms are never selected.
-    totals = jnp.asarray(np.array([5, 50, 5, 0], dtype=np.uint32))
-    idx, _ = fuzzy_best(vb, vl, totals, qb, ql, jnp.int32(2))
-    assert int(idx) == 1
+    assert pick("dag", [5, 50, 5, 0]) == 1
+    # Ties on the total pick the lowest id.
+    assert pick("dag", [7, 7, 7, 0]) == 0
     # Nothing within tolerance.
-    qb, ql = pack_query("zzzzzzzz")
-    idx, _ = fuzzy_best(vb, vl, totals, qb, ql, jnp.int32(2))
-    assert int(idx) == -1
+    assert pick("zzzzzzzz", [5, 50, 5, 0]) == -1
 
 
 def test_fuzzy_end_to_end(tmp_path):
@@ -114,119 +111,141 @@ def test_fuzzy_end_to_end(tmp_path):
         nxs.close()
 
 
-def test_pallas_kernel_matches_jnp():
-    """The term-per-lane Pallas kernel (interpret mode on CPU) must be
-    bit-identical to the jnp Myers implementation."""
-    from nxsearch_tpu.ops.pallas.fuzzy import (BLOCK_TERMS,
-                                               myers_distances_pallas)
-    rng = random.Random(5)
-    n = BLOCK_TERMS * 2
-    words = ["".join(rng.choice(string.ascii_lowercase[:5])
+def _random_vocab(rng, n, alphabet, near=()):
+    """``n`` random terms of 1..32 bytes, with ``near`` spliced in at
+    random rows (terms within a small edit distance of the queries)."""
+    words = ["".join(rng.choice(alphabet)
                      for _ in range(rng.randint(1, MAX_TERM_BYTES)))
              for _ in range(n)]
-    vb = np.zeros((n, MAX_TERM_BYTES), np.uint8)
-    vl = np.zeros(n, np.int32)
-    for i, w in enumerate(words):
-        e = w.encode()
-        vb[i, : len(e)] = np.frombuffer(e, np.uint8)
-        vl[i] = len(e)
-    for q in ("abc", "abcde" * 6, "z", "aaaaa"):
-        e = q.encode()
-        qb = np.zeros(MAX_TERM_BYTES, np.uint8)
-        qb[: len(e)] = np.frombuffer(e, np.uint8)
-        ref = np.asarray(myers_distances(
-            jnp.asarray(vb), jnp.asarray(vl), jnp.asarray(qb),
-            jnp.int32(len(e))))
-        out = np.asarray(myers_distances_pallas(
-            jnp.asarray(np.ascontiguousarray(vb.T)),
-            jnp.asarray(vl[None, :]),
-            jnp.asarray(qb.astype(np.int32)[None, :]),
-            jnp.asarray([[len(e)]], np.int32),
-            interpret=INTERPRET))[0]
-        assert np.array_equal(ref, out), q
+    for w in near:
+        words[rng.randrange(n)] = w
+    return words
 
 
-def test_pallas_batch_kernel_matches_jnp():
-    """The batched grid (queries on the inner axis, vocab tile held
-    in VMEM) must match the jnp Myers sweep row-for-row, including
-    zero-length padded query rows not poisoning real rows."""
-    from nxsearch_tpu.ops.pallas.fuzzy import (BLOCK_TERMS,
-                                               myers_distances_pallas_batch)
-    rng = random.Random(7)
-    n = BLOCK_TERMS * 2
-    words = ["".join(rng.choice(string.ascii_lowercase[:5])
-                     for _ in range(rng.randint(1, MAX_TERM_BYTES)))
-             for _ in range(n)]
-    vb = np.zeros((n, MAX_TERM_BYTES), np.uint8)
-    vl = np.zeros(n, np.int32)
+def _mutate(rng, q, alphabet, edits):
+    w = list(q)
+    for _ in range(edits):
+        op = rng.randrange(3)
+        if op == 0 and len(w) > 1:
+            del w[rng.randrange(len(w))]
+        elif op == 1 and len(w) < MAX_TERM_BYTES:
+            w.insert(rng.randrange(len(w) + 1), rng.choice(alphabet))
+        else:
+            w[rng.randrange(len(w))] = rng.choice(alphabet)
+    return "".join(w)
+
+
+def _host_pick(q, words, totals, tol):
+    best = -1
     for i, w in enumerate(words):
-        e = w.encode()
-        vb[i, : len(e)] = np.frombuffer(e, np.uint8)
-        vl[i] = len(e)
-    queries = ["abc", "abcde" * 6, "z", "aaaaa", "bcd", ""]  # "" = pad row
-    m = len(queries)
+        if totals[i] > 0 and levdist(q.encode(), w.encode()) <= tol and (
+                best < 0 or totals[i] > totals[best]):
+            best = i
+    return best
+
+
+@pytest.mark.parametrize("width", [512, 300], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("q_len", [1, 3, 8, 17, 30, 32])
+def test_kernel_matches_jnp(q_len, width):
+    """The fused Pallas sweep (interpret mode) picks exactly the term
+    the jnp Myers sweep and the host levdist pick, for region widths
+    on and off the kernel's block grid, with a padding query row."""
+    from nxsearch_tpu.ops.levenshtein import fuzzy_best_region
+    from nxsearch_tpu.ops.pallas.fuzzy import BLOCK_TERMS, fuzzy_pick
+
+    assert (width % BLOCK_TERMS == 0) == (width == 512)
+    rng = random.Random(q_len * 1000 + width)
+    alphabet = string.ascii_lowercase[:4]
+    queries = ["".join(rng.choice(alphabet) for _ in range(q_len))
+               for _ in range(5)]
+    near = [_mutate(rng, q, alphabet, e) for q in queries for e in (0, 1, 2, 3)]
+    words = _random_vocab(rng, width, alphabet, near)
+    vb, vl = pack_vocab(words)
+    ids = jnp.arange(width, dtype=jnp.int32)
+    qb = np.zeros((len(queries) + 1, MAX_TERM_BYTES), np.uint8)  # + pad row
+    ql = np.zeros(len(queries) + 1, np.int32)
+    for i, q in enumerate(queries):
+        qb[i, :q_len] = np.frombuffer(q.encode(), np.uint8)
+        ql[i] = q_len
+    for trial in range(3):
+        totals = np.asarray([rng.randint(0, 3) for _ in words], np.uint32)
+        got = np.asarray(fuzzy_pick(
+            vb.T, vl, jnp.asarray(totals), ids, jnp.asarray(qb),
+            jnp.asarray(ql), tolerance=2, interpret=True))
+        ref = np.asarray(fuzzy_best_region(
+            vb, vl, jnp.asarray(totals), ids, jnp.asarray(qb),
+            jnp.asarray(ql), jnp.int32(0), W=width, tolerance=2,
+            kernel=False))
+        assert got[-1] == -1   # zero-length padding query picks nothing
+        np.testing.assert_array_equal(got[:-1], ref[:-1])
+        want = [_host_pick(q, words, totals, 2) for q in queries]
+        # Ties on the total pick the lowest id in every path.
+        assert list(got[:-1]) == want, (trial, queries)
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_fuzzy_route_follows_platform(tmp_path, monkeypatch, platform):
+    """The fused kernel serves the sweep on the GPU only; elsewhere the
+    jnp path does, with the row-major snapshot.  Both agree with the
+    host path (the GPU route runs the kernel interpreted here)."""
+    from nxsearch_tpu.ops import levenshtein
+    monkeypatch.setattr(fuzzy_mod, "_platform", lambda: platform)
+    monkeypatch.setattr(fuzzy_mod, "_DEVICE_THRESHOLD", 1)
+    monkeypatch.setattr(
+        levenshtein, "fuzzy_best_region",
+        functools.partial(levenshtein.fuzzy_best_region, interpret=True))
+    rng = random.Random(3)
+    words = sorted({"".join(rng.choice("abcde")
+                            for _ in range(rng.randint(3, 7)))
+                    for _ in range(300)})
+    nxs = Nxs(str(tmp_path))
+    try:
+        idx = nxs.index_create("route")
+        idx.add_many([(i + 1, f"{w} {w}") for i, w in enumerate(words)])
+        idx.search("x")           # sync the host index
+        dev = FuzzyMatcher(idx.host)
+        probes = [_mutate(rng, rng.choice(words), "abcdef", 1)
+                  for _ in range(12)]
+        dev.prefetch(probes)
+        assert dev._kernel == (platform == "gpu")
+        want_shape = (MAX_TERM_BYTES, dev._t_pad) if dev._kernel \
+            else (dev._t_pad, MAX_TERM_BYTES)
+        assert dev._dev_bytes.shape == want_shape
+        monkeypatch.setattr(fuzzy_mod, "_DEVICE_THRESHOLD", 1 << 30)
+        host = FuzzyMatcher(idx.host)
+        for probe in probes:
+            assert dev.lookup(probe) == host.lookup(probe), probe
+    finally:
+        nxs.close()
+
+
+@pytest.mark.gpu
+def test_kernel_matches_jnp_on_card(gpu):
+    """Compiled for the card at a real width (the 1M-vocabulary band):
+    the kernel's picks equal the jnp sweep's exactly."""
+    from nxsearch_tpu.ops.levenshtein import fuzzy_best_region
+
+    rng = np.random.default_rng(0)
+    width, m = 1 << 20, 64
+    lens = rng.integers(3, 12, width).astype(np.int32)
+    vb = rng.integers(97, 101, (width, MAX_TERM_BYTES)).astype(np.uint8)
+    vb[np.arange(MAX_TERM_BYTES)[None, :] >= lens[:, None]] = 0
+    totals = rng.integers(0, 50, width).astype(np.uint32)
+    ids = rng.permutation(width).astype(np.int32)
     qb = np.zeros((m, MAX_TERM_BYTES), np.uint8)
-    ql = np.zeros(m, np.int32)
-    for i, q in enumerate(queries):
-        e = q.encode()
-        qb[i, : len(e)] = np.frombuffer(e, np.uint8)
-        ql[i] = len(e)
-    out = np.asarray(myers_distances_pallas_batch(
-        jnp.asarray(np.ascontiguousarray(vb.T)),
-        jnp.asarray(vl[None, :]),
-        jnp.asarray(qb.astype(np.int32)),
-        jnp.asarray(ql[:, None]),
-        interpret=INTERPRET))
-    for i, q in enumerate(queries):
-        if not q:
-            continue
-        ref = np.asarray(myers_distances(
-            jnp.asarray(vb), jnp.asarray(vl), jnp.asarray(qb[i]),
-            jnp.int32(ql[i])))
-        assert np.array_equal(ref, out[i]), q
-
-
-def test_pallas_rev_batch_kernel_matches_jnp():
-    """The transposed-Myers batch kernel (pattern = term per lane,
-    per-tile char table shared across the query chunk) must match the
-    jnp Myers sweep row-for-row, including zero-length padded query
-    rows and full-width 32-byte terms (per-lane mask/high-bit)."""
-    from nxsearch_tpu.ops.pallas.fuzzy import \
-        myers_rev_distances_pallas_batch
-    rng = random.Random(11)
-    n = 512
-    words = ["".join(rng.choice(string.ascii_lowercase[:5])
-                     for _ in range(rng.randint(1, MAX_TERM_BYTES)))
-             for _ in range(n - 4)]
-    vb = np.zeros((n, MAX_TERM_BYTES), np.uint8)   # 4 pad lanes
-    vl = np.zeros(n, np.int32)
-    for i, w in enumerate(words):
-        e = w.encode()
-        vb[i, : len(e)] = np.frombuffer(e, np.uint8)
-        vl[i] = len(e)
-    queries = ["abc", "abcde" * 6, "z", "aaaaa", "bcd", "",  # "" = pad
-               "a" * 32]
-    m = len(queries)
-    qb = np.zeros((m, MAX_TERM_BYTES), np.uint8)
-    ql = np.zeros(m, np.int32)
-    for i, q in enumerate(queries):
-        e = q.encode()
-        qb[i, : len(e)] = np.frombuffer(e, np.uint8)
-        ql[i] = len(e)
-    out = np.asarray(myers_rev_distances_pallas_batch(
-        jnp.asarray(np.ascontiguousarray(vb.T)),
-        jnp.asarray(vl[None, :]),
-        jnp.asarray(qb.astype(np.int32)),
-        jnp.asarray(ql[:, None]),
-        interpret=INTERPRET, block=256))
-    live = vl > 0
-    for i, q in enumerate(queries):
-        if not q:
-            continue
-        ref = np.asarray(myers_distances(
-            jnp.asarray(vb), jnp.asarray(vl), jnp.asarray(qb[i]),
-            jnp.int32(ql[i])))
-        assert np.array_equal(ref[live], out[i][live]), q
+    ql = rng.integers(1, 12, m).astype(np.int32)
+    for i in range(m):
+        src = vb[rng.integers(width)]
+        qb[i, : ql[i]] = src[: ql[i]]
+        qb[i, 0] = 100
+    args = (jnp.asarray(lens), jnp.asarray(totals), jnp.asarray(ids),
+            jnp.asarray(qb), jnp.asarray(ql), jnp.int32(0))
+    got = fuzzy_best_region(jnp.asarray(np.ascontiguousarray(vb.T)), *args,
+                            W=width, tolerance=2, kernel=True)
+    ref = fuzzy_best_region(jnp.asarray(vb), *args, W=width, tolerance=2,
+                            kernel=False)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    assert (np.asarray(ref) >= 0).any()
 
 
 def test_device_and_host_paths_agree(tmp_path, monkeypatch):
@@ -259,3 +278,18 @@ def test_device_and_host_paths_agree(tmp_path, monkeypatch):
                 matcher_host.lookup(probe), probe
     finally:
         nxs.close()
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["jnp", "kernel"])
+def test_query_rows_ladder(kernel):
+    """The kernel pads a dispatch to its query chunk or to the whole
+    batch (two executables per band); the jnp sweep takes rows as-is."""
+    from nxsearch_tpu.ops.pallas.fuzzy import QUERY_CHUNK
+    rows = {n: fuzzy_mod._query_rows(n, kernel)
+            for n in (1, QUERY_CHUNK, QUERY_CHUNK + 1,
+                      fuzzy_mod._KERNEL_BATCH)}
+    if kernel:
+        assert set(rows.values()) == {QUERY_CHUNK, fuzzy_mod._KERNEL_BATCH}
+        assert all(r >= n and r % QUERY_CHUNK == 0 for n, r in rows.items())
+    else:
+        assert all(r == n for n, r in rows.items())

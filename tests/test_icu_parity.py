@@ -4,7 +4,7 @@ The reference normalizes with ICU's NFKC_Casefold + the transliterator
 ``NFKD; [:Nonspacing Mark:] Remove; Latin-ASCII; NFKC``
 (src/utils/utf8.c:30-31,69,268).  text/normalize.py approximates both
 with unicodedata + an explicit fold table; divergence would be silent
-recall drift on non-ASCII corpora (VERDICT r1 weak item 6).
+recall drift on non-ASCII corpora.
 
 Two layers:
 

@@ -9,6 +9,9 @@ stay readable across releases.
 
 import struct
 
+import pytest
+
+from nxsearch_tpu.index import storage
 from nxsearch_tpu.index.hostindex import HostIndex
 from nxsearch_tpu.text.tokenizer import TOKENSET_STAGE, Token, TokenSet
 
@@ -55,6 +58,29 @@ def test_dtmap_journal_golden_bytes(tmp_path):
         + struct.pack("<II", 2, 1)           # (term 2 "dogs", count 1)
     )
     assert raw == expected_header + expected_payload
+
+
+@pytest.mark.parametrize("pread_max", [3, 8, 1 << 20])
+def test_replay_reads_journal_in_pieces(tmp_path, monkeypatch, pread_max):
+    """A journal tail longer than one pread(2) replays whole: the
+    reader loops over pieces of at most PREAD_MAX bytes (here shrunk so
+    that a small journal takes many, some of them cut mid-record)."""
+    h = HostIndex(str(tmp_path))
+    for doc_id in range(1, 6):
+        ts = make_tokens([("cat", doc_id), (f"w{doc_id}", 1)])
+        ts.resolve(h.term_lookup, TOKENSET_STAGE)
+        h.terms_add(ts)
+        h.dtmap_add(doc_id, ts)
+    h.dtmap_remove(2)
+    h.close()
+
+    monkeypatch.setattr(storage, "PREAD_MAX", pread_max)
+    r = HostIndex(str(tmp_path))
+    assert r.term_values == ["cat", "w1", "w2", "w3", "w4", "w5"]
+    assert r.doc_count == 4
+    assert sorted(r.doc_map) == [1, 3, 4, 5]
+    assert int(r.term_total.a[0]) == 1 + 3 + 4 + 5
+    r.close()
 
 
 def test_remove_tombstone_golden_bytes(tmp_path):

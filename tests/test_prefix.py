@@ -170,8 +170,8 @@ def test_prefix_skips_large_limits(tmp_path, small_cap):
     """Limits beyond the rescore ladder top (1024; covers the
     reference's default 1000) keep the classic executors; limits
     within it route prefix with the laddered rescore depth and stay
-    exact (r5: the r4 gate was limit <= 32, which pushed a stock
-    limit=1000 caller onto the slow plans -- VERDICT r4 weak #3)."""
+    exact (a gate of limit <= 32 would push a stock limit=1000 caller
+    onto the slow plans)."""
     rng = np.random.default_rng(5)
     words = [f"t{i:02d}" for i in range(20)]
     nxs = Nxs(str(tmp_path))

@@ -3,7 +3,7 @@ independent numpy oracle.
 
 Random corpora and random boolean query trees run through the full
 public API (whatever executor the router picks -- sliced, hybrid,
-blockdense, candidate, windowed, head, pair) and must match a
+prefix, candidate, dense, windowed, head, pair) and must match a
 from-scratch numpy implementation of the reference semantics
 (search.c:118-271, ranking.c:41-172): recursive bitmap algebra over
 per-term document sets, BM25/TF-IDF summed per document, removed
@@ -232,7 +232,7 @@ def test_fuzzy_queries_match_oracle(tmp_path, trial):
     """Fuzzy resolution differential test: typo'd tokens must resolve
     to the reference's selection -- highest LIVE total occurrences
     within Levenshtein tolerance 2, ties to the oldest term
-    (idxterm.c:236-242; select_best) -- then score like any term."""
+    (idxterm.c:236-242; select_best_ids) -- then score like any term."""
     rng = np.random.default_rng(500 + trial)
     vocab = int(rng.integers(12, 40))
     n_docs = int(rng.integers(40, 160))

@@ -1,8 +1,9 @@
 """Doc-sharded search over a virtual 8-device mesh.
 
 Verifies that the shard_map execution path (per-shard CSR gather +
-local top-k + ICI merge) produces results identical to the single-chip
-executor, including exact scores and boolean mask semantics.
+local top-k + all_gather merge) produces results identical to the
+single-device executor, including exact scores and boolean mask
+semantics.
 """
 
 import jax
@@ -10,14 +11,6 @@ import pytest
 
 from nxsearch_tpu import Nxs, Params
 from nxsearch_tpu.parallel import make_mesh
-
-# Real kernels on accelerators, interpret mode on CPU: the on-TPU test
-# lane (tools/tpu_tests.sh) re-runs these against actual Mosaic
-# lowering and hardware numerics (denormal flushes etc.).
-import jax as _jax
-
-INTERPRET = _jax.devices()[0].platform == "cpu"
-
 
 DOCS = [
     (1, "The quick brown fox jumped over the lazy dog"),
@@ -87,7 +80,7 @@ def test_sharded_mutation_and_limit(corpora):
 def test_sharded_incremental_no_reupload(tmp_path):
     """A mutation must NOT rebuild/re-upload the postings across the
     mesh: removals flip the alive bitmap, additions stay in the host
-    delta until the budget forces a rebuild (VERDICT r1 weak #3).
+    delta until the budget forces a rebuild.
     Private corpus: this test mutates destructively."""
     nxs = Nxs(str(tmp_path), mesh=make_mesh(jax.devices()))
     sharded = nxs.index_create("inc")
@@ -133,45 +126,6 @@ def test_sharded_wide_boolean_query(corpora):
     assert set(res_single) == set(res_sharded)
     for doc_id, score in res_single.items():
         assert res_sharded[doc_id] == pytest.approx(score, abs=1e-6)
-
-
-def test_sharded_kernel_body_matches_candidate(corpora):
-    """The blockdense kernel inside the shard_map body (interpret
-    mode on the CPU mesh) must match the candidate-core body."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from nxsearch_tpu.parallel.sharded import sharded_search_batch
-    from nxsearch_tpu.search import _build_plan, get_search_params
-    from nxsearch_tpu.query.parser import parse_query
-    from nxsearch_tpu.query.prepare import prepare
-    from nxsearch_tpu.ops.scoring import ALGO_BM25
-
-    _, sharded = corpora
-    sharded.host.sync()
-    dev = sharded.dev
-    dev.refresh()
-    sp = get_search_params(ALGO_BM25, None)
-    query = prepare(parse_query("dog AND NOT cat"), sharded.pipeline,
-                    sharded.host.term_lookup, fuzzymatch=False)
-    plan = _build_plan(dev, query, sp)
-    args = (dev.postings_slot, dev.postings_ltf, dev.doc_len,
-            dev.alive_mask,
-            jnp.asarray(plan.q_start[:, None, :]),
-            jnp.asarray(plan.q_len[:, None, :]),
-            jnp.asarray(plan.q_idf[None]), jnp.float32(dev.adl),
-            jnp.asarray(plan.prog_ops[None]),
-            jnp.asarray(plan.prog_args[None]))
-    kw = dict(mesh=dev.mesh, budget=plan.budget, k=16, algo=sp.algo,
-              use_mask=plan.use_mask, depth=plan.depth)
-    ref_s, ref_sl = sharded_search_batch(*args, **kw)
-    got_s, got_sl = sharded_search_batch(*args, use_kernel=True,
-                                         interpret=INTERPRET, **kw)
-    ref = {int(s): float(v) for v, s in
-           zip(np.asarray(ref_s[0]), np.asarray(ref_sl[0])) if v > 0}
-    got = {int(s): float(v) for v, s in
-           zip(np.asarray(got_s[0]), np.asarray(got_sl[0])) if v > 0}
-    assert ref and got == pytest.approx(ref, abs=1e-6)
 
 
 def test_sharded_windowed_planes(tmp_path):

@@ -31,14 +31,11 @@ def _reference_scores(idx, query, sp):
     import nxsearch_tpu.search as S
 
     saved_sl = S._use_sliced
-    saved_bd = S._use_blockdense
     S._use_sliced = lambda p, s, d: False
-    S._use_blockdense = lambda p, s, n: False
     try:
         return dict(idx.search(query, sp))
     finally:
         S._use_sliced = saved_sl
-        S._use_blockdense = saved_bd
 
 
 QUERIES = [

@@ -1,7 +1,6 @@
 """Service-level benchmark: drive the REST layer end-to-end over HTTP.
 
-VERDICT r2 item 7: the library QPS number bypasses the HTTP stack;
-this measures what a client actually sees.  Starts the stdlib
+The library QPS number bypasses the HTTP stack; this measures what a client actually sees.  Starts the stdlib
 ThreadingHTTPServer service (`nxsearch_tpu.service`) over the cached
 bench index, then drives it with concurrent keep-alive clients:
 
@@ -79,15 +78,14 @@ def main() -> None:
         raise SystemExit(f"no cached bench index at {basedir}; "
                          f"run bench.py first")
 
-    # Reuse bench.py's persistent compile cache: the service loads
-    # executables instead of recompiling the serving signatures.
-    jax_cache = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache")
+    # The service child is this run's only JAX process (this parent
+    # never imports JAX), and it shares bench.py's persistent compile
+    # cache (utils/compile_cache.py), loading executables instead of
+    # recompiling the serving signatures.
     proc = subprocess.Popen(
         [sys.executable, "-m", "nxsearch_tpu.service",
          "--basedir", basedir, "--host", "127.0.0.1",
-         "--port", str(args.port), "--jax-cache", jax_cache],
+         "--port", str(args.port)],
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     try:
         print(f"[svc] waiting for snapshot open on :{args.port} ...",

@@ -1,4 +1,4 @@
-"""Index-build phase profile (VERDICT r4 item 6).
+"""Index-build phase profile.
 
 The 1M-doc head-to-head (PARITY_AB v2) measured this repo's build at
 4.0x the reference against a >= 5x target and attributed the

@@ -1,6 +1,6 @@
 """Device primitive microbenchmarks for executor design decisions.
 
-Measures, on the real chip (or CPU with JAX_PLATFORMS=cpu):
+Measures on the GPU (or the CPU with JAX_PLATFORMS=cpu):
   - dispatch + fetch round-trip floor (tiny jitted fn)
   - lax.sort ns/lane at executor-relevant plane shapes, 2 and 3 operands
   - lax.top_k ns/lane at head-plane shapes
@@ -8,9 +8,13 @@ Measures, on the real chip (or CPU with JAX_PLATFORMS=cpu):
   - contiguous window fetch bandwidth (_sliced_fetch shape)
   - sliced_topk end-to-end at the measured 8.8M-mix group shapes
 
-Every timing is min-of-3 after a warmup call (this VM has multi-second
-steal stalls); arrays are passed as arguments, never closed over.
-Run alone -- one TPU process at a time.
+Every timing is min-of-3 after a warmup call; arrays are passed as
+arguments, never closed over.  Every line of output is a time on the
+device named in the first lines (with the card's name and power limit
+from nvidia-smi when there is one).  Run alone -- one JAX process per
+card.
+
+Usage: python tools/device_microbench.py
 """
 
 import os
@@ -29,10 +33,9 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-cache_dir = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache_dir)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from nxsearch_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 
 def timed(fn, *args, reps=3):
@@ -48,9 +51,17 @@ def timed(fn, *args, reps=3):
 
 
 def main():
+    import subprocess
+
     dev = jax.devices()[0]
     print(f"device: {dev.platform} {getattr(dev, 'device_kind', '?')}",
           flush=True)
+    if dev.platform == "gpu":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout
+        print(f"card: {card.splitlines()[0].strip()}", flush=True)
     rng = np.random.default_rng(7)
 
     # 1. dispatch+fetch floor

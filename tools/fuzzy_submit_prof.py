@@ -1,8 +1,8 @@
 """Instrument the submit loop for a fuzzy-typo batch (dev tool).
 
 Wraps the executor entry points with wall-clock timers to find where
-submit_query_batch spends its time on the fuzzy tier (probe_r4 showed
-~11 s in the dispatch phase at 512 typo queries, warm)."""
+submit_query_batch spends its time on the fuzzy tier (512 typo
+queries, warm)."""
 
 import os
 import sys

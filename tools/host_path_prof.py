@@ -77,15 +77,6 @@ def main():
             else min(k, n_slots)
         return _packed(n_pad, kk)
 
-    def fake_blockdense_cached(*args, k, n_slots, **kw):
-        q_crow = args[6]
-        return _packed(int(q_crow.shape[0]), min(k, n_slots))
-
-    def fake_blockdense_batch(*args, k, n_slots, **kw):
-        q_start = args[4]
-        return _packed(int(np.asarray(q_start).shape[0]),
-                       min(k, n_slots))
-
     def fake_dense(*args, k, n_slots, **kw):
         q_start = np.asarray(args[4])
         n = q_start.shape[0]
@@ -100,8 +91,6 @@ def main():
                 np.zeros((n, kk), np.int32))
 
     E.device_search_sliced_packed = fake_sliced
-    E.device_search_blockdense_cached = fake_blockdense_cached
-    E.device_search_blockdense_batch = fake_blockdense_batch
     E.device_search_dense_batch = fake_dense
     E.device_search_batch = fake_batch
     S.device_search_dense_batch = fake_dense  # imported into module ns

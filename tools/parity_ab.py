@@ -1,5 +1,4 @@
-"""Head-to-head vs the reference C engine (VERDICT r2 item 4, r3
-item 6: the scaled tier).
+"""Head-to-head vs the reference C engine (at the scaled tier).
 
 Feeds BOTH engines the same synthetic Zipf corpus (ONE file, one
 document per line, doc_id = line number) and the same query trace:
@@ -79,9 +78,9 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="parity_ab_")
     corpus = os.path.join(work, "corpus.txt")
     ref_base = os.path.join(work, "ref_base")
-    tpu_base = os.path.join(work, "tpu_base")
+    eng_base = os.path.join(work, "eng_base")
     os.makedirs(ref_base)
-    os.makedirs(tpu_base)
+    os.makedirs(eng_base)
 
     print(f"[corpus] {args.docs} docs, vocab {args.vocab}", flush=True)
     build_corpus_file(corpus, args.docs, args.vocab, args.mean_len)
@@ -107,7 +106,7 @@ def main() -> None:
 
     from nxsearch_tpu import Nxs, Params
 
-    nxs = Nxs(tpu_base)
+    nxs = Nxs(eng_base)
     idx = nxs.index_create(
         "bench", Params().set_strlist("filters", ["normalizer"]))
     t0 = time.perf_counter()
@@ -115,8 +114,8 @@ def main() -> None:
         idx.add_many(benchmod.zipf_range(
             base, min(base + benchmod._ZIPF_BLOCK, args.docs),
             args.vocab, args.mean_len))
-    tpu_index_s = time.perf_counter() - t0
-    print(f"[tpu] indexed in {tpu_index_s * 1e3:.0f} ms", flush=True)
+    eng_index_s = time.perf_counter() - t0
+    print(f"[engine] indexed in {eng_index_s * 1e3:.0f} ms", flush=True)
 
     # --- query trace ---------------------------------------------
     rng = np.random.default_rng(7)
@@ -163,10 +162,10 @@ def main() -> None:
     idx.search_many(queries, sp)
     t0 = time.perf_counter()
     mine_all = idx.search_many(queries, sp)
-    tpu_search_s = time.perf_counter() - t0
-    tpu_qps = len(queries) / tpu_search_s
-    print(f"[tpu] {len(queries)} queries in {tpu_search_s * 1e3:.1f} ms "
-          f"({tpu_qps:.0f} QPS batched)", flush=True)
+    eng_search_s = time.perf_counter() - t0
+    eng_qps = len(queries) / eng_search_s
+    print(f"[engine] {len(queries)} queries in {eng_search_s * 1e3:.1f} ms "
+          f"({eng_qps:.0f} QPS batched)", flush=True)
 
     for q, line, mine in zip(queries, lines, mine_all):
         payload = json.loads(line)
@@ -207,9 +206,9 @@ def main() -> None:
           f"({n_fuzzy_div} fuzzy-pick divergences), "
           f"scores within 1e-3 on {n_score}", flush=True)
     for q, r, m_ in mismatches:
-        print(f"  mismatch: {q!r}\n    ref {r[:4]}\n    tpu {m_[:4]}")
+        print(f"  mismatch: {q!r}\n    ref {r[:4]}\n    eng {m_[:4]}")
 
-    ratio = ref_index_ms / max(tpu_index_s * 1e3, 1e-9)
+    ratio = ref_index_ms / max(eng_index_s * 1e3, 1e-9)
     ref_qps = len(queries) / max(ref_search_ms, 1e-9) * 1e3
     report = f"""# Reference head-to-head (A/B)
 
@@ -225,12 +224,12 @@ same pipeline (normalize only), corpus and trace.
 | metric | reference (C) | nxsearch_tpu | ratio |
 |---|---|---|---|
 | index build, {args.docs} docs x ~{args.mean_len} tokens | \
-{ref_index_ms:.0f} ms | {tpu_index_s * 1e3:.0f} ms | \
+{ref_index_ms:.0f} ms | {eng_index_s * 1e3:.0f} ms | \
 **{ratio:.1f}x** (target >= 5x) |
 | search, {n_total} mixed queries | {ref_search_ms:.1f} ms \
 ({ref_qps:.0f} QPS, in-process sequential) | \
-{tpu_search_s * 1e3:.1f} ms ({tpu_qps:.0f} QPS, batched) | \
-**{tpu_qps / max(ref_qps, 1e-9):.2f}x** |
+{eng_search_s * 1e3:.1f} ms ({eng_qps:.0f} QPS, batched) | \
+**{eng_qps / max(ref_qps, 1e-9):.2f}x** |
 | index load (open) | {ref_load_ms:.0f} ms | snapshot fast-open, \
 see bench.py | - |
 

@@ -3,7 +3,7 @@
  * build the reference engine for the offline head-to-head benchmark
  * (this image does not ship libstemmer).  sb_stemmer_stem() returns
  * the input unchanged, i.e. the reference runs with stemming
- * disabled; the TPU engine is configured the same way
+ * disabled; the JAX engine is configured the same way
  * (filters=["normalizer"]) so the comparison is apples-to-apples.
  * The head-to-head corpus is synthetic ([a-z0-9] tokens), on which
  * the real Porter2 stemmer is a near-identity anyway.
